@@ -1,10 +1,9 @@
-/* vfgsio -- native pipelined frame I/O for the TPU grain engine.
+/* vfgsio -- native pipelined frame I/O for the grain engine.
  *
  * The reference model does synchronous row-wise stdio per frame
- * (yuv.c:162-214), which serializes disk I/O with compute.  At TPU engine
- * speeds (thousands of 4K frames/s on-device; see BENCH_r*.json for the
- * current measured number), feeding the device is the bottleneck, so this
- * library provides:
+ * (yuv.c:162-214), which serializes disk I/O with compute.  The device engine
+ * grains thousands of 4K frames/s with frames resident (PERF.md), so feeding
+ * the device is the bottleneck, and this library provides:
  *
  *   - a reader with a background pthread that prefetches whole frames into a
  *     ring of page-aligned buffers (read-ahead hides disk latency), and

@@ -13,7 +13,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
 from gen_input import make_input_yuv  # noqa: E402
-from gen_golden import cli_args, FMT_NAMES  # noqa: E402
+from gen_golden import cli_args, expand_cfg, FMT_NAMES  # noqa: E402
 
 GOLDEN = json.load(open(os.path.join(REPO, "tests", "golden",
                                      "checksums.json")))
@@ -27,6 +27,19 @@ def _input_path(tmpdir, case):
         make_input_yuv(path, case["w"], case["h"], case["depth"],
                        case["fmt"], case["in_frames"])
     return path
+
+
+def test_golden_cfg_args_portable():
+    """Recorded cfg arguments carry placeholders, not absolute paths, and
+    each resolves to a vendored file, so the goldens hold in any checkout."""
+    for name, entry in GOLDEN.items():
+        args = entry["case"]["args"]
+        for flag, val in zip(args, args[1:]):
+            if flag != "-c":
+                continue
+            path = val.split(":", 1)[1] if ":" in val else val
+            assert path.startswith(("$CFG/", "$EXTRA/")), (name, val)
+            assert os.path.isfile(expand_cfg(path)), (name, val)
 
 
 @pytest.mark.parametrize("name", sorted(GOLDEN))

@@ -73,8 +73,7 @@ def test_mesh_invariance(shape, csub):
     ref = _reference_frames(regs, y, u, v, bases, bases_up, csub)
 
     m = pmesh.make_mesh(nd, nt)
-    step = pmesh.make_grain_step(m, height=H, width=W, bs=2,
-                                 csubx=csub[0], csuby=csub[1])
+    step = pmesh.make_grain_step(m, bs=2, csubx=csub[0], csuby=csub[1])
     from versatilefilmgrain_tpu.ops.grain_fast import fast_args, fast_tables
     ft = fast_tables(regs)
     yo, uo, vo = step(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v),
@@ -89,25 +88,27 @@ def test_mesh_invariance(shape, csub):
 @pytest.mark.parametrize("csub", [(2, 2), (1, 1)],
                          ids=["420", "444_lumaonly"])
 @pytest.mark.parametrize("shape", [(1, 8), (2, 4), (4, 1)])
-def test_mesh_invariance_natural(shape, csub):
-    """The natural-layout Pallas engine (production single-chip default)
-    under shard_map: every mesh shape reproduces the single-device reference
+def test_mesh_invariance_triton(shape, csub):
+    """The fused Triton kernel (the GPU engine; interpret mode here) under
+    shard_map: every mesh shape reproduces the single-device reference
     engine bit for bit, including tile shards whose first block row blends
-    via the up-state bootstrap instead of the in-grid carry."""
+    from the up-state lattice."""
     nd, nt = shape
     if len(jax.devices()) < nd * nt:
         pytest.skip("not enough devices")
     regs, y, u, v, bases, bases_up = _setup(csub)
     ref = _reference_frames(regs, y, u, v, bases, bases_up, csub)
 
-    from versatilefilmgrain_tpu.ops.grain_natural import natural_tables
+    from versatilefilmgrain_tpu.ops.grain_triton import (table_args,
+                                                         triton_tables)
     m = pmesh.make_mesh(nd, nt)
-    step = pmesh.make_grain_step(m, height=H, width=W, bs=2, csubx=csub[0],
-                                 csuby=csub[1], engine="natural",
-                                 tables=natural_tables(regs),
-                                 interpret=jax.default_backend() != "tpu")
-    yo, uo, vo = step(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v),
-                      jnp.asarray(bases), jnp.asarray(bases_up))
+    step = pmesh.make_grain_step(m, bs=2, csubx=csub[0], csuby=csub[1],
+                                 engine="triton", interpret=True)
+    yo, uo, vo = step(jnp.asarray(y.astype(np.uint16)),
+                      jnp.asarray(u.astype(np.uint16)),
+                      jnp.asarray(v.astype(np.uint16)),
+                      jnp.asarray(bases), jnp.asarray(bases_up),
+                      *table_args(triton_tables(regs)))
     for f in range(F):
         assert np.array_equal(np.asarray(yo)[f], ref[f][0]), f"Y frame {f}"
         assert np.array_equal(np.asarray(uo)[f], ref[f][1]), f"U frame {f}"

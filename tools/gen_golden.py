@@ -24,16 +24,19 @@ from gen_input import make_input_yuv  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Vendored copies of the reference's cfg/ vectors (tests/golden/cfg/README.md)
 # so the suite runs without /root/reference mounted.  Recorded args use the
-# "$CFG" placeholder; expand_cfg() resolves it at use time.
+# "$CFG" and "$EXTRA" placeholders, never absolute paths, so the checksums
+# hold in any checkout; expand_cfg() resolves them at use time.
 CFG_DIR = os.path.join(REPO, "tests", "golden", "cfg")
+EXTRA_DIR = os.path.join(REPO, "tests", "golden", "cfg_extra")
 CFG = "$CFG"
+EXTRA = "$EXTRA"
 FMT_NAMES = {0: "420", 1: "422", 2: "444"}
 
 _CFG_EXTS = (".cfg", ".tbl", ".txt")
 
 
 def expand_cfg(arg: str) -> str:
-    return arg.replace("$CFG", CFG_DIR)
+    return arg.replace(CFG, CFG_DIR).replace(EXTRA, EXTRA_DIR)
 
 
 def build_cases():
@@ -53,9 +56,8 @@ def build_cases():
     # Our own extra vectors for paths the reference suite leaves untested
     # (8-pattern cap overflow, fill_model_array defaults, overlapping
     # intervals, alternative AR coefficients).
-    extra = os.path.join(REPO, "tests", "golden", "cfg_extra")
-    for f in sorted(os.listdir(extra)):
-        add(f"extra_{f}", args=["-c", os.path.join(extra, f)])
+    for f in sorted(os.listdir(EXTRA_DIR)):
+        add(f"extra_{f}", args=["-c", f"{EXTRA}/{f}"])
 
     # Default config paths.
     add("default_10b", args=[])

@@ -10,7 +10,8 @@ from __future__ import annotations
 import os
 import sys
 
-from .pipeline import GrainPipeline
+from .pipeline import ENGINES, GrainPipeline
+from .utils.compile_cache import setup_compile_cache
 from .utils import yuv
 from .utils.parsers import ConfigError
 
@@ -49,9 +50,9 @@ def help_text(name: str) -> str:
         "   --help                          Display this page\n\n"
         "Extensions over the reference vfgs:\n"
         "   --batch        <value>          Frames per device dispatch [4]\n"
-        "   --engine       <name>           Compute engine: auto (natural on TPU, fast\n"
-        "                                   elsewhere), natural, pallas, fast (XLA), ref\n"
-        "                                   [auto: natural on TPU, fast elsewhere]\n"
+        "   --engine       <name>           Compute engine: triton (fused GPU kernel),\n"
+        "                                   fast (XLA), ref (plain XLA, per frame)\n"
+        "                                   [auto: triton on a GPU, fast elsewhere]\n"
         "   --grain-offset <value>          Global grain-state frame offset (use with -s\n"
         "                                   for bit-exact frame sharding) [0]\n"
         "   --profile      <dir>            Capture a jax.profiler trace\n"
@@ -119,7 +120,7 @@ def main(argv=None) -> int:
             batch = max(1, _atoi(val()))
         elif pl == "--engine":  # extension: compute engine selection
             engine = val()
-            if engine not in ("auto", "fast", "pallas", "natural", "ref"):
+            if engine not in ENGINES:
                 print(f"Unknown engine {engine}")
                 err = True
         elif pl == "--profile":  # extension: jax profiler trace directory
@@ -150,6 +151,7 @@ def main(argv=None) -> int:
         print(help_text(name))
         return 1
 
+    setup_compile_cache()
     try:
         pipe = GrainPipeline(width, height, depth, fmt, gain=gain, seed=seed,
                              seek=seek, configs=configs, engine=engine,

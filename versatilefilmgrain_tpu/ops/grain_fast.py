@@ -1,8 +1,8 @@
-"""Gather-free fast path of the grain engine (TPU-optimized, bit-exact).
+"""Gather-free XLA formulation of the grain engine (bit-exact).
 
-XLA's per-element gathers run at ~0.1 Gelem/s on TPU, so the naive engine
-(ops/grain_jnp.py) is gather-bound.  This formulation removes every per-pixel
-gather using two structural facts of the algorithm:
+The engine off the GPU (``engine="fast"``).  It removes every per-pixel
+gather of the plain engine (ops/grain_jnp.py) using two structural facts of
+the algorithm:
 
 1. **Pattern fetches have tiny offset entropy.**  Block offsets are quantized
    to 12 vertical x 13 horizontal positions (vfgs_hw.c:99-138), so each
@@ -15,7 +15,7 @@ gather using two structural facts of the algorithm:
    from <=256 intensity intervals (vfgs_fw.c:597-639) and are piecewise
    constant; we decompose the packed (scale, pattern-index) pair into its
    runs and evaluate `sum_s (intensity >= start_s) * delta_s` -- a fused
-   compare/add chain on the VPU instead of a 256-entry gather.
+   compare/add chain instead of a 256-entry gather.
 
 Both transforms are exact: identical integers come out.  Bit-exactness versus
 the reference engine is covered by tests/test_fast_engine.py and the golden

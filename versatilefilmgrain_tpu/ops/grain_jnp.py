@@ -1,4 +1,4 @@
-"""TPU grain-blending engine: the reference "HW layer" as vectorized JAX.
+"""Plain grain-blending engine: the reference "HW layer" as vectorized JAX.
 
 This is the whole-frame re-formulation of vfgs_hw.c:140-312.  The reference
 walks the frame one 16-pixel block at a time through a 2-block pipeline; every

@@ -20,7 +20,7 @@ This module computes ``A^e`` by square-and-multiply on a column representation
 (32 uint32 columns; applying the matrix is 32 select-XOR ops, which vectorizes
 over arbitrarily-shaped state arrays in both numpy and JAX).  That replaces the
 serial dependency with an embarrassingly parallel per-(frame, row, col) state
-lattice -- the key enabler for sharding frames and tile rows across TPU chips
+lattice -- the key enabler for sharding frames and tile rows across devices
 with zero communication while staying bit-exact with the C model.
 """
 

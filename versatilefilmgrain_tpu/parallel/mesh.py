@@ -1,7 +1,7 @@
 """Device-mesh sharding for the grain engine.
 
 The reference is strictly serial (SURVEY.md section 2.6: no threads, SIMD, or
-distributed backend).  The TPU build parallelizes on two mesh axes:
+distributed backend).  This build parallelizes on two mesh axes:
 
 * ``data``  -- frames.  Grain state at any frame is closed-form in the frame
   index (ops/lfsr.py), so frames are embarrassingly parallel.
@@ -13,9 +13,10 @@ Output is bit-identical under any mesh shape (test_sharding.py proves it on a
 virtual 8-device CPU mesh); the steady-state kernel needs no collectives --
 XLA only reshards the small state lattices (KBs) at the shard_map boundary.
 
-Multi-host deployment: initialize ``jax.distributed`` and build the mesh over
-``jax.devices()``; frames ride the ``data`` axis across hosts (DCN) and tile
-rows stay within a host (ICI).
+The mesh follows the algorithm alone: the GPUs of one host are joined all to
+all by NVLink, so any (data, tile) factoring of them is equally close.
+Across hosts, initialize ``jax.distributed`` and build the mesh over
+``jax.devices()``.
 """
 
 from __future__ import annotations
@@ -26,41 +27,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-
-try:  # jax >= 0.4.35
-    import inspect
-
-    from jax import shard_map as _shard_map
-
-    # pallas_call outputs (the natural engine) carry no varying-mesh-axes
-    # annotation, so the vma/rep check must be off; the kwarg was renamed
-    # check_rep -> check_vma across jax versions, so probe the signature.
-    _params = inspect.signature(_shard_map).parameters
-    _CHECK_KW = ({"check_vma": False} if "check_vma" in _params
-                 else {"check_rep": False} if "check_rep" in _params
-                 else None)
-
-    def shard_map(f, mesh, in_specs, out_specs):
-        if _CHECK_KW is not None:
-            return _shard_map(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, **_CHECK_KW)
-        # Neither kwarg visible in the signature (e.g. hidden behind
-        # **kwargs): try them at call time rather than silently leaving the
-        # vma check on, which rejects pallas_call outputs.
-        for kw in ({"check_vma": False}, {"check_rep": False}, {}):
-            try:
-                return _shard_map(f, mesh=mesh, in_specs=in_specs,
-                                  out_specs=out_specs, **kw)
-            except TypeError:
-                continue
-        raise TypeError("jax.shard_map accepts neither check_vma nor "
-                        "check_rep and rejects plain calls")
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map as _shard_map_old
-
-    def shard_map(f, mesh, in_specs, out_specs):
-        return _shard_map_old(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, check_rep=False)
 
 from ..ops import lfsr
 from ..ops.grain_fast import plane_grain_fast
@@ -88,39 +54,36 @@ def default_mesh_shape(n_devices: int, rows: int) -> tuple[int, int]:
     return best
 
 
-def make_grain_step(mesh: Mesh, *, height: int, width: int, bs: int,
-                    csubx: int, csuby: int, engine: str = "fast",
-                    tables: dict | None = None, interpret: bool = False):
+def make_grain_step(mesh: Mesh, *, bs: int, csubx: int, csuby: int,
+                    engine: str = "fast", interpret: bool = False):
     """Build a jitted multi-device grain step over ``mesh``.
 
     Returned fn signature (fast engine, the default):
-        step(y, u, v, bases, bases_up, win_luma, win_chroma, seg_starts,
-             seg_deltas, scale_shift, y_min, y_max, c_min, c_max) -> (y, u, v)
-    with y: (F, R*16, C*16) (F divisible by mesh 'data' size, R divisible by
-    mesh 'tile' size), bases/bases_up: (F,) uint32 per-frame lattice bases.
-    With engine="ref", the table args are (pattern, sluts, pluts) instead.
-
-    With engine="natural", pass ``tables=natural_tables(regs)`` here and call
-    ``step(y, u, v, bases, bases_up)`` -- each shard runs the natural-layout
-    Pallas kernel (ops/grain_natural.py), the production single-chip engine,
-    with its first local block row's overlap carry seeded from the up-state
-    lattice (still zero halo).
+        step(y, u, v, bases, bases_up, win_luma, win_luma_up, win_chroma,
+             win_chroma_up, seg_starts, seg_deltas, scale_shift, y_min,
+             y_max, c_min, c_max) -> (y, u, v)
+    with y: (F, R*16, C*16) padded planes (F divisible by mesh 'data' size,
+    R divisible by mesh 'tile' size), bases/bases_up: (F,) uint32 per-frame
+    lattice bases.  R may exceed ceil(height/16) so that it divides the tile
+    axis: the lattice of the real rows does not depend on R, and the extra
+    rows are cropped by the caller like any padding.
+    With engine="ref", the table args are (pattern, sluts, pluts) and the
+    five scalars.  With engine="triton" they are
+    ``grain_triton.table_args(triton_tables(regs))``: each shard runs the
+    fused GPU kernel (``interpret=True`` runs it on the CPU, for tests).
     """
-    R = -(-height // 16)
-    C = -(-width // 16)
-
     plane_spec = P("data", "tile", None)
     state_spec = P("data", "tile", None)
     rep = P()
 
-    if engine == "natural":
-        import functools as _ft
-        from ..ops.grain_natural import add_grain_shard_natural
-        assert tables is not None, "engine='natural' needs tables="
-
-        _step = _ft.partial(add_grain_shard_natural, tables=tables, bs=bs,
-                            csubx=csubx, csuby=csuby, interpret=interpret)
-        n_tables = None
+    if engine == "triton":
+        from ..ops import grain_triton
+        if not interpret:
+            grain_triton.require_gpu()
+        _step = functools.partial(grain_triton.grain_planes, bs=bs,
+                                  csubx=csubx, csuby=csuby,
+                                  interpret=interpret)
+        n_rep = len(grain_triton.TABLE_KEYS)
     elif engine == "fast":
         def _step(y, u, v, states, states_up, ov_mask, win_luma, win_luma_up,
                   win_chroma, win_chroma_up, seg_starts, seg_deltas,
@@ -138,7 +101,7 @@ def make_grain_step(mesh: Mesh, *, height: int, width: int, bs: int,
 
             return (one(0, y, y_min, y_max), one(1, u, c_min, c_max),
                     one(2, v, c_min, c_max))
-        n_tables = 6
+        n_rep = 6 + 5
     else:
         def _step(y, u, v, states, states_up, ov_mask, pattern, sluts, pluts,
                   scale_shift, y_min, y_max, c_min, c_max):
@@ -155,17 +118,19 @@ def make_grain_step(mesh: Mesh, *, height: int, width: int, bs: int,
 
             return (one(0, y, y_min, y_max), one(1, u, c_min, c_max),
                     one(2, v, c_min, c_max))
-        n_tables = 3
+        n_rep = 3 + 5
 
-    extra = (rep,) * (n_tables + 5) if n_tables is not None else ()
-    sharded = shard_map(
-        _step, mesh,
+    # pallas_call outputs carry no varying-mesh-axes annotation, so the
+    # check is off for every engine alike.
+    sharded = jax.shard_map(
+        _step, mesh=mesh,
         in_specs=(plane_spec, plane_spec, plane_spec, state_spec, state_spec,
-                  P("tile")) + extra,
-        out_specs=(plane_spec, plane_spec, plane_spec))
+                  P("tile")) + (rep,) * n_rep,
+        out_specs=(plane_spec, plane_spec, plane_spec), check_vma=False)
 
     @jax.jit
     def run(y, u, v, bases, bases_up, *tables_and_scalars):
+        R, C = y.shape[1] // 16, y.shape[2] // 16
         states = jax.vmap(
             lambda b: lfsr.state_lattice_jax(b, R, C))(bases)
         row0 = jax.vmap(lambda b: lfsr.state_lattice_jax(b, 1, C))(bases_up)

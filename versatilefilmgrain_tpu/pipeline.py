@@ -19,6 +19,9 @@ from .utils import parsers, yuv
 from .utils.parsers import ConfigError, _check
 
 MAX_CONFIGS = 64
+# "fast" (XLA) and "triton" (fused GPU kernel) run batched; "ref" is the
+# plain per-pixel engine (ops/grain_jnp.py), one frame at a time.
+ENGINES = ("auto", "fast", "triton", "ref")
 
 
 class FatalConfigError(ConfigError):
@@ -201,15 +204,19 @@ class GrainPipeline:
         # makes disjoint frame shards concatenate exactly (multi-host data
         # parallelism, stateless crash recovery).
         self.grain_offset = grain_offset
+        if engine not in ENGINES:
+            raise ConfigError(f"unknown engine {engine!r}")
         if engine == "auto":
-            # The natural-layout Pallas kernel is the fastest engine on TPU
-            # (bench.py, chained-dependency timing: ~2.5x the tiled Pallas
-            # kernel, ~18x the XLA formulation); off-TPU the Pallas kernels
-            # would run in interpret mode, where the XLA path is the fast one.
+            # The fused Triton kernel is the fastest engine on a GPU
+            # (docs/DESIGN.md section 3); elsewhere it cannot compile.
             import jax
-            engine = "natural" if jax.default_backend() == "tpu" else "fast"
+            engine = "triton" if jax.default_backend() == "gpu" else "fast"
+        if engine == "triton":
+            from .ops import grain_triton
+            grain_triton.require_gpu()
         self.engine = engine
-        self._ft_cache = None  # (generation, tables)
+        self._tab_cache = None  # (generation, engine table args)
+        self._bsteps = {}       # donate -> jitted batched step
         self._cfg_generation = 0
         self._R = -(-height // 16)
         self._C = -(-width // 16)
@@ -240,37 +247,46 @@ class GrainPipeline:
             raise FatalConfigError(str(e))
         self._cfg_generation += 1
 
-    def _fast_tables(self):
-        from .ops.grain_fast import fast_tables
-        if self._ft_cache is None or self._ft_cache[0] != self._cfg_generation:
-            self._ft_cache = (self._cfg_generation, fast_tables(self.regs))
-        return self._ft_cache[1]
+    def _tables(self):
+        """Config-table arguments of the batched step, rebuilt once per
+        config generation."""
+        if self._tab_cache is None or self._tab_cache[0] != self._cfg_generation:
+            if self.engine == "triton":
+                from .ops import grain_triton
+                args = grain_triton.table_args(
+                    grain_triton.triton_tables(self.regs))
+            else:
+                from .ops.grain_fast import fast_args, fast_tables
+                args = fast_args(fast_tables(self.regs))
+            self._tab_cache = (self._cfg_generation, args)
+        return self._tab_cache[1]
 
-    def _pallas_step(self, donate: bool = False):
-        """Jitted batched Pallas step (tiled or natural-layout kernel, per
-        ``self.engine``) for the current config generation.
+    def _batched_step(self, donate: bool = False):
+        """Jitted ``step(y, u, v, bases, bases_up, *self._tables())`` over a
+        leading frame axis, for the fast or triton engine.
 
-        Runs the real Mosaic kernel on TPU and interpret mode elsewhere
-        (bit-identical integers either way; tests/test_pallas_engine.py,
-        tests/test_natural_engine.py).  ``donate`` donates the input planes
-        to XLA (in-place outputs; run_file's inputs are fresh per batch)."""
-        import jax
-        if self.engine == "natural":
-            from .ops.grain_natural import make_batched_step
-            from .ops.grain_natural import natural_tables as mk_tables
-        else:
-            from .ops.grain_pallas import make_batched_step
-            from .ops.grain_pallas import pallas_tables as mk_tables
-        key = (self._cfg_generation, donate)
-        if (getattr(self, "_pstep_cache", None) is None
-                or self._pstep_cache[0] != key):
-            step = make_batched_step(
-                mk_tables(self.regs), height=self.height,
-                width=self.width, bs=self.regs.bs, csubx=self.regs.csubx,
-                csuby=self.regs.csuby,
-                interpret=jax.default_backend() != "tpu", donate=donate)
-            self._pstep_cache = (key, step)
-        return self._pstep_cache[1]
+        ``donate`` (for fresh device arrays only) lets the XLA engine write
+        its outputs into the input planes.  The triton kernel reads one
+        pixel column beyond its own tile, so its outputs cannot alias its
+        inputs and it never donates."""
+        if donate not in self._bsteps:
+            regs = self.regs
+            if self.engine == "triton":
+                from .ops import grain_triton
+                step = grain_triton.make_batched_step(
+                    bs=regs.bs, csubx=regs.csubx, csuby=regs.csuby)
+            else:
+                import functools
+                import jax
+                from .ops.grain_fast import add_grain_frame_fast
+                fn = functools.partial(
+                    add_grain_frame_fast, height=self.height,
+                    width=self.width, bs=regs.bs, csubx=regs.csubx,
+                    csuby=regs.csuby)
+                step = jax.jit(jax.vmap(fn, in_axes=(0,) * 5 + (None,) * 11),
+                               donate_argnums=(0, 1, 2) if donate else ())
+            self._bsteps[donate] = step
+        return self._bsteps[donate]
 
     def pop_cfg(self, frame: int) -> None:
         """Re-read/validate/adjust/re-init for the next scheduled config."""
@@ -363,22 +379,13 @@ class GrainPipeline:
             up = yuv.pad_plane(u, R * bhc, C * bwc)
             vp = yuv.pad_plane(v, R * bhc, C * bwc)
         base, base_up = self.frame_bases(n)
-        if self.engine in ("pallas", "natural"):
-            step = self._pallas_step()
-            yo, uo, vo = step(
+        if self.engine != "ref":
+            yo, uo, vo = self._batched_step()(
                 jnp.asarray(yp)[None], jnp.asarray(up)[None],
                 jnp.asarray(vp)[None],
                 jnp.asarray(np.array([base], np.uint32)),
-                jnp.asarray(np.array([base_up], np.uint32)))
+                jnp.asarray(np.array([base_up], np.uint32)), *self._tables())
             yo, uo, vo = yo[0], uo[0], vo[0]
-        elif self.engine == "fast":
-            from .ops.grain_fast import add_grain_frame_fast_jit, fast_args
-            ft = self._fast_tables()
-            yo, uo, vo = add_grain_frame_fast_jit(
-                jnp.asarray(yp), jnp.asarray(up), jnp.asarray(vp),
-                jnp.uint32(base), jnp.uint32(base_up), *fast_args(ft),
-                height=self.height, width=self.width, bs=regs.bs,
-                csubx=regs.csubx, csuby=regs.csuby)
         else:
             from .ops.grain_jnp import add_grain_frame_jit
             dp = regs.device_params()
@@ -435,26 +442,6 @@ class GrainPipeline:
         v = arr[w * h + cw * ch:w * h + 2 * cw * ch].reshape(ch, cw)
         return y, u, v
 
-    def _batched_step(self, B: int, donate: bool = False):
-        import functools
-        import jax
-        from .ops.grain_fast import add_grain_frame_fast
-
-        key = (B, donate)
-        if getattr(self, "_bstep", None) is not None and self._bstep[0] == key:
-            return self._bstep[1]
-        fn = functools.partial(add_grain_frame_fast, height=self.height,
-                               width=self.width, bs=self.regs.bs,
-                               csubx=self.regs.csubx, csuby=self.regs.csuby)
-        # Donating the input planes lets XLA write outputs in place (halves
-        # peak HBM residency of the steady-state loop); run_file's inputs are
-        # fresh arrays per batch so donation is safe there.
-        step = jax.jit(jax.vmap(
-            fn, in_axes=(0, 0, 0, 0, 0) + (None,) * 11),
-            donate_argnums=(0, 1, 2) if donate else ())
-        self._bstep = (key, step)
-        return step
-
     def run_file(self, src: str, dst: str, frames: int = 0, odepth: int = 0,
                  batch: int = 4, profile_dir: str | None = None,
                  verbose: bool = False) -> int:
@@ -484,13 +471,12 @@ class GrainPipeline:
             except OSError:
                 raise OSError(f"Can not create file {dst}")
 
-        if (batch <= 1 or self.engine not in ("fast", "pallas", "natural")
-                or self._has_pad_leak()):
+        if batch <= 1 or self.engine == "ref" or self._has_pad_leak():
             # Pad-leak widths couple consecutive frames through the padding
             # columns (see _has_pad_leak), so they use the per-frame path.
             if batch > 1 and self._has_pad_leak():
                 import sys as _sys
-                print(f"[vfg-tpu] note: width {self.width} leaves a one-"
+                print(f"[vfgs] note: width {self.width} leaves a one-"
                       "sample deblock read past the frame edge (component "
                       "width % block width == 1); the reference feeds its "
                       "persistent buffer padding across frames there, so "
@@ -527,9 +513,6 @@ class GrainPipeline:
             if len(raw) != fbytes:
                 return None
             return np.frombuffer(raw, dtype=np.uint8)
-
-        import jax
-        donate = jax.default_backend() == "tpu"
 
         n = 0
         eof = False
@@ -589,15 +572,11 @@ class GrainPipeline:
             for i in range(batch):
                 b, bu = self.frame_bases(n0 + min(i, count - 1))
                 bases[i], bases_up[i] = b, bu
-            # resolve the step NOW: a later prepare() may pop the next
-            # config before this batch is dispatched
-            if self.engine in ("pallas", "natural"):
-                step = self._pallas_step(donate=donate)
-                extra = ()
-            else:
-                from .ops.grain_fast import fast_args
-                step = self._batched_step(batch, donate=donate)
-                extra = fast_args(self._fast_tables())
+            # resolve the tables NOW: a later prepare() may pop the next
+            # config before this batch is dispatched.  The planes are fresh
+            # arrays per batch, so the step may donate them.
+            step = self._batched_step(donate=True)
+            extra = self._tables()
             # jax device transfers are asynchronous: these enqueue and
             # return, overlapping the previous batch's compute
             dev = (jnp.asarray(np.stack(ys)), jnp.asarray(np.stack(us)),
@@ -651,7 +630,7 @@ class GrainPipeline:
                 import sys as _sys
                 total = _time.perf_counter() - t_start
                 fps = n / total if total > 0 else 0.0
-                print(f"[vfg-tpu] {n} frames in {total:.3f}s ({fps:.1f} fps) "
+                print(f"[vfgs] {n} frames in {total:.3f}s ({fps:.1f} fps) "
                       f"| read {t_read:.3f}s dispatch {t_step:.3f}s "
                       f"drain+write {t_write:.3f}s", file=_sys.stderr)
             if use_native:
